@@ -1,4 +1,4 @@
-/* Fast APF lookahead scan: native host-side compute for the TPU framework.
+/* Fast APF lookahead scan: native host-side compute.
  *
  * Equivalent of the reference's Segment::set_lookahead
  * (src/segdata.cpp:225-410) and a line-for-line port of the Python oracle
@@ -6,8 +6,9 @@
  * quadratic in segments x lineages and costs ~3 ms/segment at n=8, which
  * dominates APF preprocessing on whole-chromosome inputs.
  *
- * Loaded via ctypes (smcsmc_tpu/lookahead.py), falling back to the Python
- * oracle when the .so is not built.  The oracle-vs-native equality is
+ * Built on first use into build/ and loaded via ctypes
+ * (smcsmc_tpu/lookahead.py, smcsmc_tpu/_native.py), falling back to the
+ * Python oracle when no C compiler is available.  The oracle-vs-native equality is
  * gated by tests/test_apf.py::TestNativeLookahead.
  *
  * All output arrays are caller-allocated and pre-filled with the "empty"

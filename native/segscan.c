@@ -1,9 +1,10 @@
-/* Fast .seg scanner: native host-side IO for the TPU framework.
+/* Fast .seg scanner: native host-side IO.
  *
  * Equivalent of the reference's buffered C++ reader (src/segdata.cpp:55-166):
  * parses tab-separated .seg rows (3- or 6-column) into preallocated arrays.
- * Loaded from Python via ctypes (smcsmc_tpu/segio.py uses it when built,
- * falling back to the pure-Python parser otherwise).
+ * Built on first use into build/ and loaded via ctypes (smcsmc_tpu/segio.py,
+ * smcsmc_tpu/_native.py), falling back to the pure-Python parser when no C
+ * compiler is available.
  *
  * Allele codes (segdata.cpp:413-451): '0'->0 '1'->1 '.'->-1 '/'->2.
  *

@@ -1,6 +1,6 @@
-"""smcsmc_tpu: TPU-native SMC² engine for demographic inference.
+"""smcsmc_tpu: SMC² engine for demographic inference in JAX.
 
-A from-scratch JAX/XLA/Pallas reimplementation of the capabilities of
+A from-scratch JAX/XLA reimplementation of the capabilities of
 luntergroup/smcsmc: a particle filter over ancestral recombination graphs,
 inferring population sizes, migration rates and recombination rates from
 multiple whole-genome sequences via EM on lagged sufficient statistics.

@@ -174,11 +174,11 @@ def parse_smc2_args(argv: list[str]):
                 i += 1
         elif o == "-c":
             # reference: submit chunks via SGE qsub (model.py:254-257).  The
-            # TPU-native equivalent is multi-process chunk parallelism over
+            # equivalent here is multi-process chunk parallelism over
             # jax.distributed: launch one smc2 -c process per host with
-            # SMCSMC_COORD/SMCSMC_NPROC/SMCSMC_PID set (or a TPU-pod
+            # SMCSMC_COORD/SMCSMC_NPROC/SMCSMC_PID set (or a cluster
             # environment jax.distributed can auto-detect) and run_chunks
-            # partitions the chunks across processes (docs/tpu_deployment.md
+            # partitions the chunks across processes (docs/deployment.md
             # "Multi-host launch").
             io["cluster"] = True
             i += 1
@@ -248,7 +248,8 @@ def parse_smc2_args(argv: list[str]):
         elif o == "-migbuf":
             # per-branch migration-event buffer capacity (0 = auto-sized
             # from the demography; the reference's scrm node chains are
-            # unbounded, so this is a TPU-specific knob)
+            # unbounded, so this knob exists only here: device buffers
+            # have a fixed size)
             cfg.mig_buffer = int(take())
         elif o == "-smcsmcpath":
             take()  # compatibility no-op: there is no external binary
@@ -284,7 +285,7 @@ def parse_smc2_args(argv: list[str]):
 
 def print_help():
     print(
-        """smc2 (smcsmc_tpu) — demographic inference with particle filters on TPU
+        """smc2 (smcsmc_tpu) — demographic inference with particle filters in JAX
 
 Usage: smc2 [options] -seg FILE [FILE...]
 
@@ -454,7 +455,7 @@ def _log_parameters(cfg, demo, io):
 
     lines = [
         "###########################",
-        "#      smc2-tpu log       #",
+        "#        smc2 log         #",
         "###########################",
         f"version: {__version__}",
         "smcsmc parameters:",
@@ -492,12 +493,12 @@ def _log_parameters(cfg, demo, io):
 def _maybe_init_distributed(cluster: bool) -> bool:
     """Join the jax.distributed runtime before any device use.
 
-    Two activation paths (docs/tpu_deployment.md "Multi-host launch"):
+    Two activation paths (docs/deployment.md "Multi-host launch"):
     - ``SMCSMC_COORD`` (host:port) + ``SMCSMC_NPROC`` + ``SMCSMC_PID`` in
       the environment — explicit coordination, works on any backend
       (the launcher example starts one smc2 process per host this way);
     - ``-c`` with no env vars — ``jax.distributed.initialize()`` with
-      auto-detection (TPU pod / cluster environments); degrades to a
+      auto-detection (cluster environments); degrades to a
       warning and single-process execution when no cluster environment is
       detectable.
     Returns True when a multi-process runtime was joined."""

@@ -109,33 +109,6 @@ class EMConfig:
     checkpoint_blocks: int = 0
 
 
-def _mig_block_cap(num_particles: int, backend: str, walk_impl: str):
-    """TPU runtime hazard (bisected via ``tools/repro_migfault.py``,
-    fresh-process reproducible): compiled migration sweeps fault the TPU
-    worker ("kernel fault") beyond a program-dependent
-    ``num_particles x scan_length`` product:
-
-    - lock-step LOOP walk (2026-08-21): boundary at 2^20 exactly —
-      4096x255 runs, 4096x256 crashes.  Cap P x block <= 2^19 (2x margin).
-    - jump-to-event walk (2026-08-22): the boundary is PROGRAM-dependent.
-      The bare sweep (build_sweep alone, tools/repro_migfault.py) is clean
-      at 4096x256, 10000x512 and 10000x1024 (1.02e7) and crashes at
-      10000x2048 (2.05e7); the full run_chunk program is clean at
-      10000x512 (5.12e6) but crashed at 10000x838 (8.38e6).  Cap
-      P x block <= 2^22 (4.19e6, ~20% under the largest run_chunk-probed
-      good product).
-
-    The plain no-migration sweep is unaffected at 10000x2048 (p50k
-    bench).  Looks like an i32/descriptor-count overflow scaling with the
-    compiled program's per-segment op count (hence the program
-    dependence).  Returns the max block size (floored at 1), or None when
-    no cap applies (CPU)."""
-    if backend in ("cpu",):
-        return None
-    prod = (2 ** 19) if walk_impl == "loop" else (2 ** 22)
-    return max(1, prod // max(num_particles, 1))
-
-
 def _mig_uniform_rate(demo: Demography) -> bool:
     """True when the total out-migration rate (after the epoch's -ej pop
     fold) is identical across populations in every epoch AND there are
@@ -524,27 +497,12 @@ def run_chunk(
                 resume_block,
             )
 
-    block_size = cfg.block_size
-    if pfcfg.has_migration:
-        cap = _mig_block_cap(
-            cfg.num_particles, jax.default_backend(),
-            os.environ.get("SMCSMC_MIG_WALK", "jump"),
-        )
-        if cap is not None:
-            if cap < 16:
-                logging.getLogger("smcsmc").warning(
-                    "TPU migration fault-envelope cap forces block_size=%d "
-                    "at P=%d (P x block <= 2^19); expect extra per-block "
-                    "dispatch overhead", cap, cfg.num_particles,
-                )
-            block_size = min(block_size, cap)
-
     ess_traces = []
     resample_rows = []  # (genome position, ESS) at each resample event
     next_update = cfg.online_threshold
     cur_demo = demo
     for bi, block in enumerate(prepare_blocks(
-        seg, block_size, chunk_start, max_configs=max_configs,
+        seg, cfg.block_size, chunk_start, max_configs=max_configs,
         dephase=cfg.dephase, lookahead=la,
     )):
         if resume_block is not None and bi <= resume_block:
@@ -619,8 +577,11 @@ def run_chunk(
         "ess": np.concatenate(ess_traces) if ess_traces else np.array([]),
         "resample_rows": resample_rows,
         "final_front": float(state.front),
+        "segments": seg.num_segments,
         "walks_capped": float(state.diag[0]),
         "mig_events_dropped": float(state.diag[1]),
+        # where the sweep ran (chunk workers pin one device each)
+        "device": str(next(iter(state.ln_norm.devices()))),
     }
     if diag["walks_capped"] or diag["mig_events_dropped"]:
         logging.getLogger("smcsmc").warning(
@@ -720,8 +681,9 @@ def run_chunks(
         )
     # multi-process (multi-host) partitioning over jax.distributed: chunk ci
     # belongs to process ci % nproc — the reference's one-SGE-job-per-chunk
-    # (execute.py:26-105) with the .out-file summation replaced by one DCN
-    # all-reduce of the [E, ...] tensors (parallel/distributed.py)
+    # (execute.py:26-105) with the .out-file summation replaced by one
+    # cross-process all-reduce of the [E, ...] tensors
+    # (parallel/distributed.py)
     nproc = jax.process_count()
     pid = jax.process_index() if nproc > 1 else 0
     mine = [ci for ci in range(n) if ci % nproc == pid]

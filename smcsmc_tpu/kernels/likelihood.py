@@ -6,16 +6,18 @@ leaf states 0/1, missing (-1) scores [1, 1], root prior 1/2:1/2 (or 1:0 for
 ``ancestral_aware``).  Unphased genotypes (allele code 2) are marginalized
 over phase configurations by the caller (particleContainer.cpp:138-224).
 
-TPU-native formulation: a *ready-propagation* sweep over the whole particle
+Formulation: a *ready-propagation* sweep over the whole particle
 population at once — each pass combines every internal node whose two
 children already carry partials, entirely with masked elementwise ops and
 one-hot child lookups ([P, N, N] compare+select+reduce).  No argsort (the
-height order is discovered by data flow), no gathers (they serialize on
-TPU), and ONE population-level ``lax.while_loop`` rather than a vmapped
-scalar loop (whose lane masking miscompiles at P >= 1024 on some TPU
-runtimes — the round-2 lesson, see tree.make_initial_trees).  Passes needed
-= internal-combine depth of the deepest tree (~log n for coalescent trees,
-<= n-1 worst case).
+height order is discovered by data flow), no gathers, and ONE
+population-level ``lax.while_loop`` rather than a vmapped scalar loop (see
+tree.make_initial_trees).  Passes needed = internal-combine depth of the
+deepest tree (~log n for coalescent trees, <= n-1 worst case).
+
+The root combine with the prior is written as an explicit two-term sum,
+not a matrix product: a float32 dot may run at reduced (TF32) precision
+on GPUs, and the sum has no such path.
 """
 
 from __future__ import annotations
@@ -33,9 +35,8 @@ def _site_likelihood_one(
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Single-tree pruning; returns (rescaled root likelihood, log-scale).
 
-    Ready-propagation with a STATIC n-1 pass fori_loop so it stays safe
-    under vmap (a data-dependent while under vmap lane-masks, which
-    miscompiles at large batch on some TPU runtimes)."""
+    Ready-propagation with a STATIC n-1 pass fori_loop, so that under vmap
+    it needs no per-lane loop masking."""
     N = tree_time.shape[0]
     n = (N + 1) // 2
     l0 = jnp.where(alleles == 1, 0.0, 1.0)
@@ -51,8 +52,10 @@ def _site_likelihood_one(
     oh1 = c1[:, None] == eq[None, :]
     t0 = tree_time - jnp.sum(jnp.where(oh0, tree_time[None, :], 0.0), axis=1)
     t1 = tree_time - jnp.sum(jnp.where(oh1, tree_time[None, :], 0.0), axis=1)
-    p0 = jnp.exp(-t0 * mutation_rate)
-    p1 = jnp.exp(-t1 * mutation_rate)
+    # mutation probability on each child branch; expm1, not 1 - exp: mu*t
+    # reaches 1e-8 and below, where 1 - exp loses every digit in float32
+    q0 = -jnp.expm1(-t0 * mutation_rate)
+    q1 = -jnp.expm1(-t1 * mutation_rate)
 
     def body(_, s):
         partial, acc, ready = s
@@ -61,8 +64,8 @@ def _site_likelihood_one(
         r0 = jnp.sum(jnp.where(oh0, ready[None, :], False), axis=1) > 0
         r1 = jnp.sum(jnp.where(oh1, ready[None, :], False), axis=1) > 0
         can = (~ready) & ~is_leaf & r0 & r1
-        m0 = a0 * p0[:, None] + a0[:, ::-1] * (1.0 - p0)[:, None]
-        m1 = a1 * p1[:, None] + a1[:, ::-1] * (1.0 - p1)[:, None]
+        m0 = a0 * (1.0 - q0)[:, None] + a0[:, ::-1] * q0[:, None]
+        m1 = a1 * (1.0 - q1)[:, None] + a1[:, ::-1] * q1[:, None]
         val = m0 * m1
         sc = jnp.maximum(jnp.maximum(val[:, 0], val[:, 1]), 1e-30)
         partial = jnp.where(can[:, None], val / sc[:, None], partial)
@@ -78,7 +81,8 @@ def _site_likelihood_one(
     root_part = jnp.sum(
         jnp.where(root_oh[:, None], partial, 0.0), axis=0
     ) / jnp.maximum(jnp.sum(root_oh), 1)
-    return root_part @ ancestral_prior, acc
+    lik = root_part[0] * ancestral_prior[0] + root_part[1] * ancestral_prior[1]
+    return lik, acc
 
 
 def site_log_likelihood(
@@ -116,8 +120,10 @@ def site_log_likelihood(
     oh1 = c1[:, :, None] == eq[None, None, :]
     t0 = time - jnp.sum(jnp.where(oh0, time[:, None, :], 0.0), axis=2)
     t1 = time - jnp.sum(jnp.where(oh1, time[:, None, :], 0.0), axis=2)
-    p0 = jnp.exp(-t0 * mu)  # [P, N] no-mutation prob on each child branch
-    p1 = jnp.exp(-t1 * mu)
+    # [P, N] mutation probability on each child branch (expm1: see
+    # _site_likelihood_one)
+    q0 = -jnp.expm1(-t0 * mu)
+    q1 = -jnp.expm1(-t1 * mu)
 
     def combine_pass(s):
         partial, acc, ready = s
@@ -130,8 +136,8 @@ def site_log_likelihood(
         r0 = jnp.sum(jnp.where(oh0, ready[:, None, :], False), axis=2) > 0
         r1 = jnp.sum(jnp.where(oh1, ready[:, None, :], False), axis=2) > 0
         can = (~ready) & ~is_leaf & r0 & r1
-        m0 = a0 * p0[:, :, None] + a0[:, :, ::-1] * (1.0 - p0)[:, :, None]
-        m1 = a1 * p1[:, :, None] + a1[:, :, ::-1] * (1.0 - p1)[:, :, None]
+        m0 = a0 * (1.0 - q0)[:, :, None] + a0[:, :, ::-1] * q0[:, :, None]
+        m1 = a1 * (1.0 - q1)[:, :, None] + a1[:, :, ::-1] * q1[:, :, None]
         val = m0 * m1
         sc = jnp.maximum(jnp.maximum(val[:, :, 0], val[:, :, 1]), 1e-30)
         partial = jnp.where(
@@ -162,7 +168,7 @@ def site_log_likelihood(
     root_part = jnp.sum(
         jnp.where((parent < 0)[:, :, None], partial, 0.0), axis=1
     )  # [P, 2]
-    lik = root_part @ prior
+    lik = root_part[:, 0] * prior[0] + root_part[:, 1] * prior[1]
     return jnp.log(jnp.maximum(lik, 1e-30)) + acc
 
 

@@ -86,8 +86,8 @@ class TransitionRecord(NamedTuple):
 
 
 def _epoch_index(epoch_start: jnp.ndarray, t: jnp.ndarray) -> jnp.ndarray:
-    """Epoch of time(s) t via comparison-count — NOT searchsorted, whose
-    batched lowering gathers per element and serializes on TPU."""
+    """Epoch of time(s) t via comparison-count, not a batched
+    searchsorted (which lowers to per-element gathers)."""
     E = epoch_start.shape[0]
     cnt = jnp.sum(
         t[..., None] >= epoch_start.reshape((1,) * t.ndim + (E,)), axis=-1
@@ -96,10 +96,9 @@ def _epoch_index(epoch_start: jnp.ndarray, t: jnp.ndarray) -> jnp.ndarray:
 
 
 def _oh_pick(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    """table[idx] for a scalar idx into axis 0 as a one-hot reduction —
-    batched gathers serialize on TPU (GatherScatterIndicesBitpacked), while
-    this fuses into compare+select+reduce on the VPU.  Works for any
-    trailing shape."""
+    """table[idx] for a scalar idx into axis 0 as a one-hot reduction that
+    fuses into compare+select+reduce instead of a batched gather.  Works for
+    any trailing shape."""
     K = table.shape[0]
     oh = (jnp.arange(K) == idx).reshape((K,) + (1,) * (table.ndim - 1))
     return jnp.sum(jnp.where(oh, table, jnp.zeros_like(table)), axis=0)
@@ -236,10 +235,8 @@ def _walk_fast(key, time, parent, pop, c, h_r, epochs: Epochs):
     directly at every UNSORTED breakpoint candidate (node times ∪ epoch
     starts) as a [V, N, E] elementwise tensor; the event time inverts
     Λ(t*) = x by taking the highest breakpoint with Λ ≤ x plus a linear
-    step at the local rate.  The previous formulation (jnp.sort of the
-    breakpoints + searchsorted + a dozen index gathers) compiled to a
-    while-loop sort and GatherScatterIndicesBitpacked custom calls that
-    serialized on TPU — ~16 ms/call at P=10k vs sub-ms for this form."""
+    step at the local rate, with no sort of the breakpoints, no
+    searchsorted and no index gathers."""
     N = parent.shape[0]
     E, Pp = epochs.num_epochs, epochs.num_pops
     k_coal, k_tgt = jax.random.split(key)
@@ -353,9 +350,8 @@ def _walk_mig_batched(
     path above the root is re-simulated fresh at each transition
     (memoryless), so no migration events are stored above the root.
 
-    One global ``lax.while_loop`` with explicit per-particle done-masking —
-    NOT a vmapped scalar loop, whose lane-masking miscompiles on some TPU
-    runtimes for batches >= 1024 (see make_initial_trees)."""
+    One global ``lax.while_loop`` with explicit per-particle done-masking,
+    not a vmapped scalar loop (see make_initial_trees)."""
     P, N = parent.shape
     E, Pp = epochs.num_epochs, epochs.num_pops
     Mw = mig_time.shape[2]
@@ -363,10 +359,7 @@ def _walk_mig_batched(
     pt = jax.vmap(parent_time)(time, parent)  # [P, N]
     root = jnp.argmax(parent < 0, axis=1).astype(jnp.int32)  # [P]
 
-    # one-hot pickers (gather-free: batched gathers / take_along_axis
-    # lower to serializing scatter-gather custom calls on TPU — converting
-    # them cut the walk's per-iteration cost ~10x and sidesteps a runtime
-    # kernel fault at num_particles x scan_length >= 2^20)
+    # one-hot pickers (gather-free: no batched gathers / take_along_axis)
     def pick_nodes(arr, idx):
         """arr [P, N(, ...)], idx [P] -> arr[p, idx[p]] via one-hot."""
         oh = (jnp.arange(N)[None, :] == idx[:, None])
@@ -479,7 +472,7 @@ def _walk_mig_batched(
         # in the pairwise phase (both active nodes record, particle.cpp:251+)
         span = jnp.clip(t_next - t, 0.0, None)
         span = jnp.where(jnp.isfinite(span) & go, span, 0.0)
-        # one-hot masked adds (vmapped/batched scatters serialize on TPU)
+        # one-hot masked adds instead of batched scatters
         oh_e = (e[:, None] == jnp.arange(E)[None, :]).astype(jnp.float32)
         oh_p = (p_cur[:, None] == jnp.arange(Pp)[None, :]).astype(jnp.float32)
         oh_r = (r_cur[:, None] == jnp.arange(Pp)[None, :]).astype(jnp.float32)
@@ -1093,8 +1086,8 @@ def _walk_mig_jump(
 
 def _replace_in_row(child_arr, node, old, new, N):
     """child_arr[node] == old -> new (one child array [N]), guarded for
-    node < 0.  Masked select instead of ``.at[idx].set``: under vmap the
-    scatter serializes on TPU."""
+    node < 0.  Masked select instead of a vmapped ``.at[idx].set``
+    scatter."""
     hit = (jnp.arange(N) == node) & (child_arr == old)
     return jnp.where(hit & (node >= 0), new, child_arr)
 
@@ -1108,10 +1101,8 @@ def _filter_events(ev_t, ev_d, lo, hi):
     """Keep events with lo <= t < hi; compact left; INF-pad.
 
     Inputs are time-sorted (every producer emits ascending INF-padded
-    lists), so compaction is a stable cumsum-slot scatter — no sort.  The
-    original argsort formulation dominated the whole migration transition
-    under vmap (~15 vmapped [2Mw] sorts serialize on TPU; measured 15.6 ms
-    vs 1.7 ms for the entire jump walk at P=1000, Mw=56)."""
+    lists), so compaction is a stable cumsum-slot scatter — no sort (an
+    argsort formulation needed ~15 vmapped [2Mw] sorts per transition)."""
     M = ev_t.shape[0]
     keep = (ev_t >= lo) & (ev_t < hi) & (ev_t < INF)
     slot = jnp.cumsum(keep.astype(jnp.int32)) - 1
@@ -1138,8 +1129,8 @@ def _merge_events_hold(t1, d1, t2, d2, M):
 
     Sort-free: both inputs are time-sorted, so the merge is a stable rank
     (pairwise comparisons, index tie-break) + one-hot scatter, and the
-    min-hold drop rule a second rank on (-hold, index) — vmapped argsorts
-    serialized on TPU and dominated the migration transition."""
+    min-hold drop rule a second rank on (-hold, index), with no vmapped
+    argsort."""
     t = jnp.concatenate([t1, t2])
     d = jnp.concatenate([d1, d2])
     K = t.shape[0]
@@ -1172,8 +1163,7 @@ def _apply_spr(
     new_ev_t, new_ev_d, h_r, root_ev_t=None, root_ev_d=None,
 ):
     """Constant-time SPR on the index arrays (+ migration-buffer routing).
-    All node lookups are one-hot reductions — batched gathers serialize on
-    TPU."""
+    All node lookups are one-hot reductions, not batched gathers."""
     N = parent.shape[0]
     p = _oh_pick(parent, c)  # c is never the root (its branch has length 0)
     pc = jnp.clip(p, 0, N - 1)

@@ -131,8 +131,8 @@ def epochs_from_demography(demo) -> Epochs:
 
 def parent_time(tree_time: jnp.ndarray, tree_parent: jnp.ndarray) -> jnp.ndarray:
     """[N] time of each node's parent; INF for the root (its branch above is
-    the unbounded ancestral lineage).  One-hot reduction instead of a gather:
-    batched gathers serialize on TPU, and this sits in every hot kernel."""
+    the unbounded ancestral lineage).  One-hot reduction instead of a
+    batched gather; this sits in every hot kernel."""
     N = tree_time.shape[0]
     pt = jnp.sum(
         jnp.where(
@@ -203,7 +203,7 @@ def leaf_ancestor_ids(tree_parent: jnp.ndarray) -> jnp.ndarray:
     n = (N + 1) // 2
 
     def up(cur):
-        # parent lookup as a one-hot reduction (gather-free on TPU)
+        # parent lookup as a one-hot reduction (gather-free)
         par = jnp.sum(
             jnp.where(
                 cur[:, None] == jnp.arange(N)[None, :],
@@ -239,8 +239,8 @@ def count_data_leaves_below(
     """[N] number of data-carrying leaves below (and including) each node.
 
     Adds each leaf's data flag onto its ancestor chain (reference recursion:
-    particle.cpp:706-730) via a one-hot masked sum — vmapped scatters
-    serialize on TPU.  ``tree_parent`` is required (kept last for call-site
+    particle.cpp:706-730) via a one-hot masked sum instead of a vmapped
+    scatter.  ``tree_parent`` is required (kept last for call-site
     compatibility)."""
     N = tree_time.shape[0]
     ids = leaf_ancestor_ids(tree_parent).reshape(-1)  # [n*n]
@@ -296,7 +296,7 @@ def descendant_bitmask64(
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """[N] (lo, hi) u32 pair covering up to 64 sample leaves — full parity
     with the reference's u64 Descendants_t (descendants.hpp:16-33) without
-    requiring x64 mode on TPU."""
+    requiring JAX's x64 mode."""
     N = tree_time.shape[0]
     n = (N + 1) // 2
     ids = leaf_ancestor_ids(tree_parent).reshape(-1)  # [n*n]
@@ -368,9 +368,9 @@ def make_initial_trees(
 
     Population-batched by construction: ONE ``lax.while_loop`` advances all
     particles in lock-step with explicit per-particle done-masking, instead
-    of vmapping a scalar while loop (vmapped while lane-masking miscompiles
-    on some TPU runtimes for batches >= 1024 — observed corrupting ~93% of
-    trees — and lock-step masking is the idiomatic SPMD formulation anyway).
+    of vmapping a scalar while loop: lock-step masking is the idiomatic
+    SPMD formulation, and a vmapped while loop was once miscompiled at
+    batches >= 1024 by an accelerator runtime this code ran on.
 
     ``max_mig=0`` omits the per-branch migration-event buffers entirely
     (migration-free models: no buffer sorts anywhere downstream)."""
@@ -476,8 +476,7 @@ def make_initial_trees(
         do_coal = go & ~hit_bk & is_coal & (m >= 2)
 
         def setm(arr, i1, val, mask):
-            # masked select over the column axis (scatter-free: batched
-            # scatters serialize on TPU)
+            # masked select over the column axis (scatter-free)
             K = arr.shape[1]
             hit = (jnp.arange(K)[None, :] == i1[:, None]) & mask[:, None]
             return jnp.where(hit, val[:, None], arr)

@@ -81,23 +81,17 @@ def _pad_block(la: LookaheadData, pad: int) -> LookaheadData:
 
 
 def _native_lookahead():
-    """ctypes handle to the C scan (native/lookahead.c), if built."""
+    """ctypes handle to the C scan (native/lookahead.c), built on first use;
+    None when no C compiler is available."""
     global _NATIVE
     if _NATIVE is not None:
         return _NATIVE or None
     import ctypes
-    import os
 
-    so = os.path.join(os.path.dirname(__file__), "_lookahead.so")
-    if not os.path.exists(so):
-        _NATIVE = False
-        return None
-    try:
-        lib = ctypes.CDLL(so)
-        lib.lookahead_scan  # symbol check before committing to the binary
-    except (OSError, AttributeError):
-        # stale/foreign-ABI binary (e.g. built elsewhere): fall back to the
-        # Python oracle instead of crashing; `make native` rebuilds it
+    from ._native import load
+
+    lib = load("lookahead", "lookahead_scan")
+    if lib is None:
         _NATIVE = False
         return None
     f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
@@ -122,7 +116,7 @@ _NATIVE = None
 def compute_lookahead(seg: SegData, max_doubletons: int | None = None) -> LookaheadData:
     """Scan-forward APF statistics for every segment (segdata.cpp:225-410).
 
-    Dispatches to the C scanner (native/lookahead.c) when built — the
+    Dispatches to the C scanner (native/lookahead.c) when it builds — the
     Python scan below is the oracle (~3 ms/segment at n=8; the C path is
     >100x faster) and the fallback."""
     lib = _native_lookahead()

@@ -1,12 +1,12 @@
-"""Multi-host (multi-process) chunk parallelism over DCN.
+"""Multi-host (multi-process) chunk parallelism.
 
 The reference scales across machines by launching one ``smcsmc`` process per
 genome chunk through SGE and summing the per-chunk sufficient statistics
 from ``.out`` files (/root/reference/smcsmc/execute.py:26-105,
-model.py:903-910, 1094-1100).  The TPU-native equivalent (SURVEY.md §2.4,
+model.py:903-910, 1094-1100).  The equivalent here (SURVEY.md §2.4,
 §5.8): each *process* (host group) runs its own chunk sweep on its local
 devices, and the O(epochs × pops²) sufficient-statistic tensors plus the
-scalar log-likelihoods are reduced across processes over DCN with one
+scalar log-likelihoods are reduced across processes with one
 all-reduce per EM iteration — the only cross-host communication the
 algorithm needs.
 
@@ -16,7 +16,7 @@ Usage (one process per host / per chunk group):
     dist.initialize(coordinator, num_processes, process_id)
     stats, stats_wt, logl, diag = run_chunk(demo, seg, cfg,
                                             chunk=my_chunks[process_id], ...)
-    stats = dist.allreduce_stats(stats)  # DCN allgather + f64 host sum
+    stats = dist.allreduce_stats(stats)  # allgather + f64 host sum
     logl = dist.allreduce_scalar(logl)
 
 Tested by tests/test_multihost.py with two coordinated CPU processes.
@@ -31,7 +31,7 @@ import numpy as np
 def initialize(
     coordinator_address: str, num_processes: int, process_id: int
 ) -> None:
-    """Join the jax.distributed runtime (DCN coordination layer).
+    """Join the jax.distributed runtime (cross-process coordination).
 
     Mirrors ``jax.distributed.initialize``; call before any jax device use.
     """
@@ -50,7 +50,7 @@ def allreduce_array(x: np.ndarray) -> np.ndarray:
     """Sum a host array across processes.
 
     Implementation: ``multihost_utils.process_allgather`` (the gather rides
-    DCN between hosts) followed by a host-side ``np.sum`` — NOT a
+    the network between hosts) followed by a host-side ``np.sum`` — NOT a
     device-side psum.  That is the right trade here: the reduced tensors
     are O(epochs × pops²) floats moved once per EM iteration, and the f64
     host sum avoids f32 accumulation error on the statistics; a shard_map

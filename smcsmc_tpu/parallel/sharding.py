@@ -5,8 +5,9 @@ The reference's only parallelism is process-level genome chunking plus SGE
 (`jax.sharding.NamedSharding` on axis ``'p'``) and the per-step collectives —
 log-normalizer (logsumexp), ESS (Σw²), and the systematic-resampling
 cumsum/searchsorted/ancestry-gather — are emitted by XLA's GSPMD partitioner
-from the same single-program sweep code, riding ICI.  Genome chunks map to
-independent host groups over DCN exactly like the reference's ``-chunks``.
+from the same single-program sweep code, riding the links between the
+cards (NVLink on one host).  Genome chunks map to independent devices or
+processes exactly like the reference's ``-chunks``.
 """
 
 from __future__ import annotations
@@ -51,8 +52,8 @@ def sharded_step(step_fn, mesh: Mesh, num_particles: int):
     """Jit a segment-scan step with particle-axis sharding constraints.
 
     GSPMD partitions the whole sweep: elementwise particle ops stay local,
-    reductions become psums over ICI, and the resampling gather becomes a
-    collective permute/all-gather.
+    reductions become psums across the cards, and the resampling gather
+    becomes a collective permute/all-gather.
     """
 
     def wrapped(state, block):

@@ -86,23 +86,17 @@ _NATIVE = None
 
 
 def _native_scanner():
-    """ctypes handle to the C seg scanner (native/segscan.c), if built."""
+    """ctypes handle to the C seg scanner (native/segscan.c), built on first
+    use; None when no C compiler is available."""
     global _NATIVE
     if _NATIVE is not None:
         return _NATIVE or None
     import ctypes
-    import os
 
-    so = os.path.join(os.path.dirname(__file__), "_segscan.so")
-    if not os.path.exists(so):
-        _NATIVE = False
-        return None
-    try:
-        lib = ctypes.CDLL(so)
-        lib.segscan_parse  # symbol check before committing to the binary
-    except (OSError, AttributeError):
-        # stale/foreign-ABI binary: use the Python parser; `make native`
-        # rebuilds the scanner for this host
+    from ._native import load
+
+    lib = load("segscan", "segscan_parse")
+    if lib is None:
         _NATIVE = False
         return None
     lib.segscan_parse.restype = ctypes.c_long

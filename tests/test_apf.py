@@ -217,8 +217,8 @@ class TestNativeLookahead:
             compute_lookahead_py,
         )
 
-        if _native_lookahead() is None:
-            pytest.skip("native/_lookahead.so not built (run `make native`)")
+        # built from native/lookahead.c on first use
+        assert _native_lookahead() is not None
         demo = _demo(n=8, L=5e5)
         demo.sample_pops = np.zeros(8, dtype=np.int32)
         seg = simulate_seg(demo, seed=43)

@@ -1,4 +1,4 @@
-"""Reference-precision statistical gates on the TPU tier (VERDICT r3 #2).
+"""Reference-precision statistical gates on the GPU device tier.
 
 Pre-registered intervals, derived from pilot runs (tools/pilot_gates.py)
 and stated against the reference's own targets:
@@ -7,8 +7,8 @@ and stated against the reference's own targets:
   1e7 bp / Np=1000 — the reference's scale (test_const_pop_size.py:17-32);
   its ±1% intervals are for a single E-step (em=0), so the full-EM gate
   pools epochs (±2.5%) and bounds the per-epoch EM wander (±25%);
-- (a2) P=10000 single E-step at 1e7 bp — the precision march the TPU
-  makes possible (the reference CI cannot run P=10k): pooled Ne ±1.5%,
+- (a2) P=10000 single E-step at 1e7 bp — beyond what the reference CI
+  runs (it cannot afford P=10k): pooled Ne ±1.5%,
   recombination rate ±4%;
 - (b) two-population split (-ej) with unidirectional migration
   (test_two_pops.py:52-60 TestTwoPopsSplitUniDirMigr semantics), plus an
@@ -18,12 +18,12 @@ and stated against the reference's own targets:
   (test_migration.py:27-41);
 - (d) the reference's EXACT bias-on configuration
   (test_const_pop_size.py:17-48: n=2, mu=2.5e-8, rho=1e-8, bias 400 /
-  [3,1]) gated at the reference's own per-epoch bands — green on device
-  2026-08-22 with default lags (see BASELINE.md "Reference-config
-  precision" for the lag-calibration root cause).
+  [3,1]) gated at the reference's own per-epoch bands with default lags
+  (see BASELINE.md "Reference-config precision" for the lag-calibration
+  root cause).
 
-These run on the real device via ``make tpu-smoke`` (seconds-to-minutes
-there; hours on the CPU tier).
+These run on the card via ``make gpu-tests`` or ``chip_smoke.py`` (hours
+on the CPU tier).
 """
 
 import numpy as np
@@ -33,7 +33,7 @@ from smcsmc_tpu.demography import Demography
 from smcsmc_tpu.em import EMConfig, run_chunk, run_em
 from smcsmc_tpu.simulate import simulate_seg
 
-pytestmark = pytest.mark.tpu
+pytestmark = pytest.mark.gpu
 
 
 def const_demo(L=1e7, n=4, ne=10000.0):
@@ -124,24 +124,16 @@ def test_full_em_const_ne():
     assert res.log_likelihoods[-1] > res.log_likelihoods[0] - 100.0
 
 
-def test_full_em_with_guide_smoothing(tmp_path):
-    """Recomb-rate recovery with the guide loop ON (-alpha 0.5): record ->
-    WBS-smooth -> guided proposals across a full EM (VERDICT r3 weak #5 —
-    nothing pinned recomb under guide smoothing).
-
-    Pre-registered (pilot seed 101, tools/pilot_gates.py run_d: r per
-    iteration [+3.6%, -2.5%, +6.2%]; pooled Ne drifts to +6.6% by
-    iteration 2 — this config runs WITHOUT lag calibration or the Ne cap,
-    so the EM wander is larger than test_full_em_const_ne's):
-    recombination rate within ±10% of 1e-9 at EVERY iteration, pooled Ne
-    epochs 1-5 within ±3% at iteration 0 and ±8% at every iteration,
-    per-epoch within ±25% at the final iteration."""
-    ne = 10000.0
+def run_guide(outdir, seed=1, em_iters=2):
     demo = const_demo()
     seg = simulate_seg(demo, seed=101)
-    cfg = EMConfig(num_particles=1000, block_size=1024, em_iters=2,
-                   alpha=0.5, outdir=str(tmp_path))
-    res = run_em(demo, seg, cfg)
+    cfg = EMConfig(num_particles=1000, block_size=1024, em_iters=em_iters,
+                   alpha=0.5, outdir=outdir, seed=seed)
+    return run_em(demo, seg, cfg)
+
+
+def check_guide(res):
+    ne = 10000.0
     assert _pooled_ne(res.stats[0]) == pytest.approx(ne, rel=0.03)
     for it, st in enumerate(res.stats):
         r = float(st.recomb_cnt.sum() / st.recomb_opp.sum())
@@ -151,10 +143,38 @@ def test_full_em_with_guide_smoothing(tmp_path):
         2.0 * res.stats[-1].coal_cnt[1:, 0]
     )
     np.testing.assert_allclose(ne_final, ne, rtol=0.25)
-    # the guide files actually drove iterations 1+
-    import os
 
-    assert os.path.exists(tmp_path / "emiter1" / "chunk0.recomb_guide.gz")
+
+def test_full_em_with_guide_smoothing(tmp_path):
+    """Recomb-rate recovery with the guide loop ON (-alpha 0.5): record ->
+    WBS-smooth -> guided proposals across a full EM.
+
+    Pre-registered (pilot seed 101, tools/pilot_gates.py run_d: r per
+    iteration [+3.6%, -2.5%, +6.2%]; pooled Ne drifts to +6.6% by
+    iteration 2 — this config runs WITHOUT lag calibration or the Ne cap,
+    so the EM wander is larger than test_full_em_const_ne's):
+    recombination rate within ±10% of 1e-9 at EVERY iteration, pooled Ne
+    epochs 1-5 within ±3% at iteration 0 and ±8% at every iteration,
+    per-epoch within ±25% at the final iteration."""
+    res = run_guide(str(tmp_path))
+    check_guide(res)
+    # the guide files actually drove iterations 1+
+    assert (tmp_path / "emiter1" / "chunk0.recomb_guide.gz").exists()
+
+
+def run_p10k(seed=7):
+    demo = const_demo()
+    seg = simulate_seg(demo, seed=101)
+    cfg = EMConfig(num_particles=10000, block_size=1024)
+    stats, _, logl, _ = run_chunk(demo, seg, cfg, seed=seed)
+    return stats, logl
+
+
+def check_p10k(stats, logl):
+    assert np.isfinite(logl) and logl < 0
+    assert _pooled_ne(stats) == pytest.approx(10000.0, rel=0.015)
+    r = float(stats.recomb_cnt.sum() / stats.recomb_opp.sum())
+    assert r == pytest.approx(1e-9, rel=0.04)
 
 
 def test_p10k_precision_estep():
@@ -163,43 +183,22 @@ def test_p10k_precision_estep():
     Pre-registered (pilot seed 101 / filter seed 7: r -0.5%, pooled Ne
     +0.45%): pooled Ne epochs 1-5 within ±1.5%, recombination rate within
     ±4%."""
-    ne = 10000.0
-    demo = const_demo()
-    seg = simulate_seg(demo, seed=101)
-    cfg = EMConfig(num_particles=10000, block_size=1024)
-    stats, _, logl, _ = run_chunk(demo, seg, cfg, seed=7)
-    assert np.isfinite(logl) and logl < 0
-    assert _pooled_ne(stats) == pytest.approx(ne, rel=0.015)
-    r = float(stats.recomb_cnt.sum() / stats.recomb_opp.sum())
-    assert r == pytest.approx(1e-9, rel=0.04)
+    check_p10k(*run_p10k())
 
 
-def test_two_pop_split_recovery():
-    """Two-population split (-ej) with unidirectional migration 0->1
-    below the split, 1e7 bp / Np=1000 / EM=2 starting from SYMMETRIC
-    migration (reference regression: test_two_pops.py:52-60).
-
-    Pre-registered (re-registered round 5 after the jump-walk proposal
-    landed, 3-filter-seed device pilot 2026-08-22: epoch-0 Ne scatters
-    ±15-32% in BOTH populations at Np=1000 — pop-0 [10276, 8259, 13235],
-    pop-1 [9273, 10122, 11538] — the [0, 4000)-generation window simply
-    carries few coalescences; epochs 1-2 stay within ±7%): at the E-step
-    (iteration 0):
-    - per-epoch Ne within ±15% for both populations in epochs 1-2, and
-      within ±35% in the noise-dominated epoch 0;
-    - post-split epoch 2: migration rates exactly 0 (no opportunity) and
-      pop-1 Ne at the prior (pseudocount-only after the -ej fold);
-    - directional signal below the split: m01 summed over epochs 0-1
-      exceeds 1e-6 (truth 5e-6; pilots 5.9-8.0e-6) AND exceeds the m10
-      rate in epoch 0 specifically (pilots: ~6e-6 vs <5e-8)."""
+def run_split(seed=1, em_iters=2):
     truth = split_demo()
     seg = simulate_seg(truth, seed=101)
     start = split_demo(migr=False)
     start.mig_rates = np.zeros((3, 2, 2))
     start.mig_rates[0:2, 0, 1] = 5e-6
     start.mig_rates[0:2, 1, 0] = 5e-6
-    cfg = EMConfig(num_particles=1000, block_size=1024, em_iters=2)
-    res = run_em(start, seg, cfg)
+    cfg = EMConfig(num_particles=1000, block_size=1024, em_iters=em_iters,
+                   seed=seed)
+    return run_em(start, seg, cfg)
+
+
+def check_split(res):
     st = res.stats[0]
     ne = st.coal_opp / (2.0 * st.coal_cnt)
     np.testing.assert_allclose(ne[1:, 0], 10000.0, rtol=0.15)
@@ -220,6 +219,54 @@ def test_two_pop_split_recovery():
     assert res.log_likelihoods[-1] > res.log_likelihoods[0] - 500.0
 
 
+def test_two_pop_split_recovery():
+    """Two-population split (-ej) with unidirectional migration 0->1
+    below the split, 1e7 bp / Np=1000 / EM=2 starting from SYMMETRIC
+    migration (reference regression: test_two_pops.py:52-60).
+
+    Pre-registered (re-registered round 5 after the jump-walk proposal
+    landed, 3-filter-seed device pilot 2026-08-22: epoch-0 Ne scatters
+    ±15-32% in BOTH populations at Np=1000 — pop-0 [10276, 8259, 13235],
+    pop-1 [9273, 10122, 11538] — the [0, 4000)-generation window simply
+    carries few coalescences; epochs 1-2 stay within ±7%): at the E-step
+    (iteration 0):
+    - per-epoch Ne within ±15% for both populations in epochs 1-2, and
+      within ±35% in the noise-dominated epoch 0;
+    - post-split epoch 2: migration rates exactly 0 (no opportunity) and
+      pop-1 Ne at the prior (pseudocount-only after the -ej fold);
+    - directional signal below the split: m01 summed over epochs 0-1
+      exceeds 1e-6 (truth 5e-6; pilots 5.9-8.0e-6) AND exceeds the m10
+      rate in epoch 0 specifically (pilots: ~6e-6 vs <5e-8)."""
+    check_split(run_split())
+
+
+def run_unidir(seed=1, em_iters=2):
+    truth = unidir_demo()
+    seg = simulate_seg(truth, seed=101)
+    start = unidir_demo()
+    start.mig_rates = np.zeros((3, 2, 2))
+    start.mig_rates[:, 1, 0] = 1.25e-5
+    start.mig_rates[:, 0, 1] = 1.25e-5
+    cfg = EMConfig(num_particles=1000, block_size=1024, em_iters=em_iters,
+                   seed=seed)
+    return run_em(start, seg, cfg)
+
+
+def check_unidir(res):
+    st = res.stats[-1]
+    m = st.mig_cnt / np.maximum(st.mig_opp[:, :, None], 1e-300)
+    for e in (0, 1, 2):
+        assert 0.4 * 2.5e-5 < m[e, 1, 0] < 1.3 * 2.5e-5, (e, m[e])
+    for e in (0, 1):
+        assert m[e, 1, 0] > 3.0 * m[e, 0, 1], (e, m[e])
+    ne = st.coal_opp / (2.0 * st.coal_cnt)
+    np.testing.assert_allclose(ne, 10000.0, rtol=0.20)
+    r = float(st.recomb_cnt.sum() / st.recomb_opp.sum())
+    assert 0.9e-9 < r < 1.25e-9, r
+    # the log-likelihood must not degrade across iterations
+    assert res.log_likelihoods[-1] > res.log_likelihoods[0] - 500.0
+
+
 def test_unidir_migration_per_epoch():
     """TwoPopUniDirMigr (test_migration.py:27-41): backward migration
     1->0 at 2.5e-5 constant, 1e7 bp, n=8, Np=1000, EM=2 starting from a
@@ -235,32 +282,12 @@ def test_unidir_migration_per_epoch():
     - m10[e] within [0.4x, 1.3x] of 2.5e-5 for all three epochs;
     - m10 > 3x m01 in epochs 0 and 1;
     - per-epoch Ne within +-20%; recomb rate within [0.9e-9, 1.25e-9]."""
-    truth = unidir_demo()
-    seg = simulate_seg(truth, seed=101)
-    start = unidir_demo()
-    start.mig_rates = np.zeros((3, 2, 2))
-    start.mig_rates[:, 1, 0] = 1.25e-5
-    start.mig_rates[:, 0, 1] = 1.25e-5
-    cfg = EMConfig(num_particles=1000, block_size=1024, em_iters=2)
-    res = run_em(start, seg, cfg)
-    st = res.stats[-1]
-    m = st.mig_cnt / np.maximum(st.mig_opp[:, :, None], 1e-300)
-    for e in (0, 1, 2):
-        assert 0.4 * 2.5e-5 < m[e, 1, 0] < 1.3 * 2.5e-5, (e, m[e])
-    for e in (0, 1):
-        assert m[e, 1, 0] > 3.0 * m[e, 0, 1], (e, m[e])
-    ne = st.coal_opp / (2.0 * st.coal_cnt)
-    np.testing.assert_allclose(ne, 10000.0, rtol=0.20)
-    r = float(st.recomb_cnt.sum() / st.recomb_opp.sum())
-    assert 0.9e-9 < r < 1.25e-9, r
-    # the log-likelihood must not degrade across iterations
-    assert res.log_likelihoods[-1] > res.log_likelihoods[0] - 500.0
+    check_unidir(run_unidir())
 
 
 def test_reference_config_estep():
-    """The reference's OWN const-Ne configuration, bias on (VERDICT r4
-    missing #1): n=2, 1e7 bp, mu=2.5e-8, rho=1e-8, change points
-    [0, .01, .25, .5, 1, 1.5] x 4N0, Np=1000, em=0, lag = 2x survival,
+    """The reference's OWN const-Ne configuration, bias on: n=2, 1e7 bp,
+    mu=2.5e-8, rho=1e-8, change points [0, .01, .25, .5, 1, 1.5] x 4N0, Np=1000, em=0, lag = 2x survival,
     bias_heights [400], bias_strengths [3,1]
     (test_const_pop_size.py:17-48).
 
@@ -312,14 +339,12 @@ def test_reference_config_estep():
 
 @pytest.mark.skipif(
     not __import__("os").environ.get("SMCSMC_BIG_GATES"),
-    reason="30 Mb tier (~6-8 min on device): set SMCSMC_BIG_GATES=1 "
-    "(kept out of the default tpu-smoke budget)",
+    reason="30 Mb tier: set SMCSMC_BIG_GATES=1 "
+    "(kept out of the default device-tier budget)",
 )
 def test_two_pop_split_recovery_30mb():
     """The reference's split regression at its FULL 30 Mb scale
-    (test_two_pops.py:52-60 runs seqlen 3e7 / Np=1000) — VERDICT r4
-    missing #2; affordable now that the jump walk runs migration sweeps
-    at ~2 ms/segment (BASELINE.md round-5 ledger).
+    (test_two_pops.py:52-60 runs seqlen 3e7 / Np=1000).
 
     Bands: the 1e7 bp gate's re-registered intervals (epochs 1-2 ±15%,
     epoch 0 ±35%, directional m01 > 1e-6 and > m10 in epoch 0); 3x the

@@ -1,6 +1,7 @@
 """Multi-process (multi-"host") chunk parallelism over jax.distributed —
-the DCN story of SURVEY.md §2.4/§5.8 (reference: one SGE process per chunk,
-execute.py:26-105, stats summed across .out files, model.py:903-910).
+the cross-host story of SURVEY.md §2.4/§5.8 (reference: one SGE process
+per chunk, execute.py:26-105, stats summed across .out files,
+model.py:903-910).
 
 Spawns two coordinated CPU processes, each running ONE genome chunk of the
 same dataset, reduces the sufficient statistics across processes, and
@@ -52,7 +53,8 @@ ch = chunks[me]
 stats, stats_wt, logl, diag = run_chunk(
     demo, seg, cfg, chunk=(ch.start, ch.end), seed=100 + me
 )
-# the DCN reduction: one all-reduce of the [E,...] tensors + the scalar
+# the cross-process reduction: one all-reduce of the [E,...] tensors + the
+# scalar log-likelihood
 merged = dist.allreduce_stats(stats)
 logl_sum = dist.allreduce_scalar(logl)
 if me == 0:

@@ -1,6 +1,6 @@
 """Pilot runs for the round-4 reference-precision statistical gates.
 
-Runs the three scenarios on the real TPU and prints the estimates so the
+Runs the three scenarios on the device and prints the estimates so the
 gate intervals can be pre-registered from evidence:
   (a) const-Ne full EM (3 iters, -calibrate_lag) at 1e7 bp / Np=1000
   (b) two-population split (-ej) recovery

@@ -1,4 +1,4 @@
-"""Pilot for the reference-exact const-Ne gate (VERDICT r5 item 3).
+"""Pilot for the reference-exact const-Ne gate.
 
 Runs the reference's own configuration
 (/root/reference/test/old/newtests/test_const_pop_size.py:17-48):
@@ -6,7 +6,7 @@ n=2, 1e7 bp, mu=2.5e-8, rho=1e-8, change points [0,.01,.25,.5,1,1.5]x4N0,
 Np=1000, em=0, lag=2x survival (calibrate), bias_heights [400],
 bias_strengths [3,1] — and prints per-epoch Ne and the recombination-rate
 ratio for several (data seed, filter seed) pairs, to pre-register the
-intervals of tests/test_tpu_stat_gates.py::test_reference_config_estep.
+intervals of tests/test_gpu_stat_gates.py::test_reference_config_estep.
 
 Reference targets for calibration: epoch 1 [10202,10471] (their estimator
 runs ~+3% there), epochs 2-5 within +-1.4%, recomb [9.77e-9, 9.89e-9]

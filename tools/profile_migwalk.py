@@ -1,9 +1,8 @@
 """Profile the 2-pop continuous-migration sweep: jump walk vs loop walk.
 
-The round-4 finding (BASELINE.md feature-cost profile): the lock-step
-event walk ran ~69 ms/segment at P=1000 (latency-bound on the population-
-max event count).  This measures both implementations on the same config
-and prints ms/segment + particle-site updates/s.
+The lock-step event walk is latency-bound on the population-max event
+count.  This measures both implementations on the same config and prints
+ms/segment + particle-site updates/s.
 
 Usage: python tools/profile_migwalk.py [P] [impl ...]
        impl defaults to both: jump loop
